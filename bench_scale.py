@@ -14,11 +14,11 @@ this harness simulates the same *shape* at configurable scale:
   n_extra_genes scales the gene count into the 100k range.
 - rep genomes: Mb-scale multi-contig genomes for the pileup tensor.
 
-Measured per pipeline: e2e reads/s, HBM bytes of pack+index vs the
+Measured per pipeline: e2e reads/s, device bytes of pack+index vs the
 int32/2 GiB addressing asserts (db/index.py:163,189), marker tie-set
 widths vs num_cands, and ambiguous/gapped spill rates vs the default
-staging caps. Prints one JSON line; run manually (not part of the
-driver bench) — results recorded in SCALE_BENCH.md.
+staging caps. Needs a GPU (exits non-zero without one); prints the
+card's name and power limit, then one JSON line. Run manually.
 """
 
 import json
@@ -39,17 +39,6 @@ def nbytes(tree) -> int:
         total += int(np.asarray(v).nbytes) if not isinstance(v, dict) \
             else nbytes(v)
     return total
-
-
-def setup_jax_cache():
-    import jax
-
-    jax.config.update(
-        "jax_compilation_cache_dir",
-        os.environ.get("JAX_COMPILATION_CACHE_DIR",
-                       os.path.join(os.path.expanduser("~"),
-                                    ".cache/midas_tpu/jax")))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
 
 def run_scale(n_species: int = 500, genome_len: int = 100000,
@@ -147,7 +136,12 @@ def run_scale(n_species: int = 500, genome_len: int = 100000,
 
 
 def main():
-    setup_jax_cache()
+    from midas_tpu.runtime import card_info, require_gpu, setup_compile_cache
+
+    setup_compile_cache()
+    require_gpu()
+    card = card_info()
+    print(f"card: {card}", flush=True)
     out = run_scale(
         n_species=int(os.environ.get("SCALE_SPECIES", "500")),
         genome_len=int(os.environ.get("SCALE_GENOME", "100000")),
@@ -155,6 +149,7 @@ def main():
         extra=int(os.environ.get("SCALE_EXTRA_GENES", "0")),
         n_reads=int(os.environ.get("SCALE_READS", str(N_READS))),
     )
+    out["card"] = card
     print(json.dumps(out))
 
 

@@ -1,6 +1,6 @@
 """Banded affine-gap alignment, vectorized over (read, candidate) pairs.
 
-This is the TPU-native replacement for the seed-extension inner loops of
+This is the device replacement for the seed-extension inner loops of
 bowtie2 and hs-blastn (reference hot loops: SURVEY.md §3.1-3.3). The DP
 runs in diagonal-offset coordinates: for query row i, band offset
 d ∈ [0, D) addresses reference position winstart + i + d, so the
@@ -16,8 +16,10 @@ which is a Kogge-Stone max-scan over A[d'] = H_noD[d'] + d'*gap_extend.
 Alignment statistics (matches, mismatches, gap columns, gap opens,
 start coordinates) are propagated along the argmax path as one stacked
 [S, P, D] tensor — every selection is a single `where` with a broadcast
-condition, keeping the scan body small enough for fast XLA compiles and
-mapping directly onto the VPU layout the Pallas kernel uses.
+condition, keeping the scan body small enough for fast XLA compiles.
+It is the plain reference for the CUDA kernel (align/banded_dp.cu),
+which keeps the same state in registers and must match it bit for
+bit.
 
 Tie-break priority matches align/oracle.py: diagonal > deletion >
 insertion; earliest row, then smallest offset, for equal best cells.

@@ -1,5 +1,5 @@
 """NumPy gold-standard aligner: full (unbanded) affine-gap DP with
-traceback. Slow, exact, and the semantic contract every TPU kernel is
+traceback. Slow, exact, and the semantic contract every device DP is
 tested against. Replaces the role the reference's black-box binaries
 played as "source of truth" (bowtie2 / hs-blastn, SURVEY.md §2.2) with
 an explicit, testable specification.

@@ -7,19 +7,19 @@ top-C diagonals per read by vote count become banded-extension
 candidates. Both strands are searched by seeding the reverse-complement
 read (the reference gets this from the aligner binaries implicitly).
 
-TPU layout notes (all measured on a v5e at B=2048 reads):
+Layout notes (the design choices; whether each still pays on the GPU
+against the plain gather or sort is open, see ROADMAP.md):
 
 - Hash probing is ONE parallel gather of all PROBE_WINDOW candidate
   slots (the index build bounds displacement), not a sequential probe
-  loop: 16 dependent gathers are each HBM-latency-bound (~24 ms vs
-  ~3 ms).
+  loop of dependent, memory-latency-bound gathers.
 - Hits are packed per read with an inverse-CDF trick before the
   positions gather: seeds are sorted by ascending hit count (so unique,
   informative seeds survive truncation), hit m of a read maps to
   (seed, within-seed offset) via comparisons against the exclusive
-  cumsum of counts — all VPU ops — and ONE [B, max_read_hits] gather
-  pulls exactly the real hits. The naive [B, S, max_hits] gather moves
-  ~17x more elements, nearly all padding (measured 21 ms -> ~2.5 ms).
+  cumsum of counts — all elementwise ops — and ONE [B, max_read_hits]
+  gather pulls exactly the real hits. The naive [B, S, max_hits]
+  gather moves ~17x more elements, nearly all padding.
 - Vote counting sorts the packed [B, 2*max_read_hits] diagonal keys and
   run-length-counts via a log-doubling suffix min; top-C selection is C
   rounds of argmax + neighborhood masking. No data-dependent shapes.
@@ -39,7 +39,7 @@ from midas_tpu.db.index import (BUCKET_SLOTS, EMPTY_KEY, LEVEL2_SALT, ROW,
                                 SeedIndex)
 
 # plain ints: jnp constants at module level would initialize the JAX
-# backend on import, which breaks when a TPU plugin registers lazily
+# backend on import, before the caller has chosen a platform
 INVALID_KEY = 2**31 - 1
 STRAND_OFFSET = 2**30  # keys: strand * STRAND_OFFSET + diag + L
 
@@ -68,9 +68,8 @@ def _shift_left_rows(x: jnp.ndarray, shifts: jnp.ndarray,
                      fill) -> jnp.ndarray:
     """out[i, j] = x[i, j + shifts[i]] (fill beyond L), by binary
     decomposition of the per-row shift: log2(L) select-between-static-
-    slices passes. A take_along_axis row gather here costs ~13 ms per
-    [8192, 128] int8 batch on TPU (XLA lowers small-dtype gathers to a
-    scalar loop); the shift ladder is pure VPU layout work (<1 ms)."""
+    slices passes: elementwise selects instead of a take_along_axis row
+    gather over small-dtype elements."""
     B, L = x.shape
     fill = x.dtype.type(fill)
     bit = 1
@@ -116,8 +115,8 @@ def _query_kmers(codes: jnp.ndarray, qlens: jnp.ndarray, k: int, stride: int,
     Horner accumulation over tiny [B, S] planes. (The earlier version
     accumulated k-mers at EVERY read position then kept 1-in-stride —
     k full-width shifted passes over [B, L], ~7.5x the arithmetic and
-    memory traffic for identical values; and a [B, S, k] index gather
-    costs several ms on TPU, so the slices must be static.)"""
+    memory traffic for identical values; and the slices are static so
+    no [B, S, k] index gather is needed.)"""
     B, L = codes.shape
     n_seeds = max(1, (max_len - k) // stride + 1)
     assert (n_seeds - 1) * stride + k <= L, (n_seeds, stride, k, L)
@@ -184,9 +183,8 @@ def _packed_strand_keys(
     # first, repeat-heavy seeds are truncated preferentially. S is tiny
     # (~17), so the stable rank is computed by O(S^2) counting and the
     # permutation applied with a one-hot contraction — identical to a
-    # stable argsort + 3 take_along_axis gathers, but pure VPU work
-    # (the [B, S] sort + payload gathers measured ~4 ms/strand at
-    # B=8192; this is sub-ms)
+    # stable argsort + 3 take_along_axis gathers, but elementwise work
+    # only
     lt = (c[:, None, :] < c[:, :, None])                     # c_j < c_i
     eq_lo = ((c[:, None, :] == c[:, :, None])
              & (jnp.arange(S)[None, None, :] < jnp.arange(S)[None, :, None]))
@@ -207,7 +205,7 @@ def _packed_strand_keys(
     R = max(1, sp.max_read_hits // ROW)
     j = jnp.arange(R, dtype=jnp.int32)[None, :]                    # [1, R]
     # inverse CDF: row j belongs to seed sid = max{s : roffs[s] <= j};
-    # one-hot select of that seed's attributes is pure VPU work
+    # one-hot select of that seed's attributes is elementwise work
     le = roffs[:, None, :] <= j[:, :, None]                        # [B, R, S]
     sid = jnp.sum(le.astype(jnp.int32), axis=2) - 1                # [B, R]
     onehot = (jnp.arange(S, dtype=jnp.int32)[None, None, :]
@@ -252,23 +250,22 @@ def find_candidates(
 
     # optimization_barriers between the pipeline phases: letting XLA
     # fuse the hit-packing producers into the sort/vote consumers
-    # recomputes the [B, R, S] intermediates per consumer (measured:
-    # 32 ms -> 27 ms fused find_candidates at B=8192 with barriers)
+    # recomputes the [B, R, S] intermediates per consumer
     keys = jax.lax.optimization_barrier(keys)
     keys = jnp.sort(keys, axis=1)
     keys = jax.lax.optimization_barrier(keys)
     # votes per run of equal keys, via prefix scans (a vmapped
-    # searchsorted lowers to per-element while loops — ~10x slower on TPU)
+    # searchsorted lowers to per-element while loops)
     M = keys.shape[1]
     j_idx = jnp.broadcast_to(jnp.arange(M, dtype=jnp.int32)[None, :], (B, M))
     is_start = jnp.concatenate(
         [jnp.ones((B, 1), jnp.bool_), keys[:, 1:] != keys[:, :-1]], axis=1)
     # index of the next run start strictly after j (reverse exclusive
     # cumulative min of start positions), computed as an explicit
-    # log-doubling suffix min: lax.associative_scan here makes TPU XLA
+    # log-doubling suffix min: lax.associative_scan here made XLA
     # compile superlinearly in B*M when composed with the hit-gather
-    # producer above (measured 100s+ at B=1024 — vs seconds for the
-    # unrolled doubling, which computes the identical result)
+    # producer above; the unrolled doubling computes the identical
+    # result
     start_pos = jnp.where(is_start, j_idx, M)
     next_start = jnp.concatenate(
         [start_pos[:, 1:], jnp.full((B, 1), M, jnp.int32)], axis=1)
@@ -314,8 +311,8 @@ def gather_windows(
     """Gather reference windows, masking outside the target sequence so
     alignments never cross packed-sequence boundaries.
 
-    Element-gather fallback (used by the CPU path and dist/sharded);
-    the TPU hot path uses gather_windows_packed below.
+    Element-gather version (used by dist/sharded); the profilers use
+    gather_windows_packed below.
 
     Returns (ref_win [B, C, W] int8, seq_idx [B, C] int32)."""
     W = window_len
@@ -362,17 +359,15 @@ def gather_windows_packed(
     center: jnp.ndarray = None,  # [B, C] expected alignment midpoint
     #                              (diag + qlen//2); default = window mid
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Word-packed window gather for TPU.
+    """Word-packed window gather.
 
-    An int8 element gather moves one base per (HBM-latency-bound)
+    An int8 element gather moves one base per (memory-latency-bound)
     gathered element; packing 16 bases into each uint32 word cuts the
-    gathered element count 16x (measured 23 ms -> ~3 ms at B*C=16k,
-    W=143). The sub-word realignment (winstart mod 16) happens in WORD
-    space with per-window variable bit shifts — a handful of uint32 ops
-    on [B, C, NWIN] (the earlier 16-way static-slice select burned 32
-    elementwise passes over the unpacked [B, C, W] planes and was the
-    bulk of this stage's time: 17 ms -> ~5 ms for the whole gather at
-    B=8192, C=8).
+    gathered element count 16x. The sub-word realignment (winstart mod
+    16) happens in WORD space with per-window variable bit shifts — a
+    handful of uint32 ops on [B, C, NWIN] (an earlier 16-way
+    static-slice select burned 32 elementwise passes over the unpacked
+    [B, C, W] planes).
 
     Returns (ref_win [B, C, W] int8, seq_idx [B, C] int32)."""
     W = window_len
@@ -384,10 +379,8 @@ def gather_windows_packed(
     off = winstart - w0 * BASES_PER_WORD                       # in [0, 16)
     # Fetch the NWIN+1 consecutive words per window as WHOLE 16-word
     # ROWS of a [*, 16] view plus a word-granular shift ladder: an
-    # element gather of B*C*(NWIN+1) individual words lowers to a
-    # scalar loop on TPU (measured 18 ms at B=8192, C=8 — 31% of the
-    # marker device step); 2-3 row gathers per window run ~4x faster
-    # and the ladder is pure VPU work.
+    # element gather of B*C*(NWIN+1) individual words becomes 2-3 row
+    # gathers per window, and the ladder is elementwise work.
     WPR = 16
     NW = pack_words.shape[0]
     rows_n = -(-NW // WPR)

@@ -9,6 +9,7 @@ import os
 import sys
 
 from midas_tpu.db.layout import check_database
+from midas_tpu.runtime import setup_compile_cache
 
 
 def _io_args(p, snps=False):
@@ -133,6 +134,7 @@ def _apply_presets(args: dict) -> None:
 
 def main(argv=None):
     args = vars(build_parser().parse_args(argv))
+    setup_compile_cache()
     check_database(args.get("db"))
     args["indirs"] = list_samples(args["input"], args["intype"])
     program = args["program"]

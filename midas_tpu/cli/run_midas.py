@@ -19,6 +19,7 @@ import sys
 from time import time
 
 from midas_tpu.db.layout import check_database
+from midas_tpu.runtime import setup_compile_cache
 
 
 def species_parser(subs):
@@ -150,7 +151,7 @@ def snps_parser(subs):
 def build_parser():
     parser = argparse.ArgumentParser(
         prog="run_midas",
-        description="midas_tpu: TPU-native metagenomic species/gene/SNP profiling per sample",
+        description="midas_tpu: GPU-accelerated metagenomic species/gene/SNP profiling per sample",
     )
     subs = parser.add_subparsers(dest="program", required=True)
     species_parser(subs)
@@ -338,25 +339,10 @@ def _setup_outdir(args: dict, program: str):
     return log
 
 
-def _enable_compile_cache():
-    """Persist XLA compilations across CLI invocations: the fused
-    profiling jits take tens of seconds to compile per process, and a
-    pipeline run is several processes (species -> genes -> snps)."""
-    try:
-        import jax
-
-        cache = os.environ.get(
-            "JAX_COMPILATION_CACHE_DIR",
-            os.path.join(os.path.expanduser("~"), ".cache/midas_tpu/jax"))
-        jax.config.update("jax_compilation_cache_dir", cache)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
-
-
 def main(argv=None):
     args = vars(build_parser().parse_args(argv))
-    _enable_compile_cache()
+    # the fused profiling jits compile once per machine, not per process
+    setup_compile_cache()
     program = args["program"]
     check_database(args.get("db"))
     if isinstance(args.get("species_id"), str):

@@ -1,8 +1,8 @@
 """Split FASTQ/FASTA input into per-host shard files.
 
 Multi-host batch striding re-parses the WHOLE stream on every host
-(dist/driver.stride_batches — fine at <=8 hosts given the ~1.3M reads/s
-native parser, SCALE_BENCH.md), so beyond that the inputs should be
+(dist/driver.stride_batches — fine at a few hosts, where the native
+parser outruns each host's device), so beyond that the inputs should be
 split into one file per host and passed host-locally. This utility is
 that escape hatch, kept record-exact:
 

@@ -3,9 +3,8 @@ bowtie2-build and `hs-blastn index` (reference invocation sites:
 midas/run/genes.py:108-114, midas/run/snps.py:89-95,
 midas/build/build_db.py:449-456).
 
-Design, driven by TPU gather economics (an XLA row gather of a 2D
-array costs ~the same as ONE element gather per row, independent of row
-width or table size — measured ~1 ms per 35k rows on a v5e):
+Design, driven by gather economics (an XLA row gather of a 2D array
+costs about the same as ONE element gather per row, for narrow rows):
 
 - **Bucketed hash table.** 8 slots per bucket; a bucket row packs
   [keys x8 | start_row x8 | count x8] into 24 int32 columns, so one

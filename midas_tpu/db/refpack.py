@@ -1,4 +1,4 @@
-"""Packed reference arrays — the TPU-native replacement for
+"""Packed reference arrays — the device-resident replacement for
 bowtie2-build / `hs-blastn index` FM-indexes
 (/root/reference/midas/run/genes.py:108-114, snps.py:89-95,
 midas/build/build_db.py:449-456).

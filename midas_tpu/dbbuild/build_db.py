@@ -1,4 +1,4 @@
-"""Custom reference-database construction — the TPU-native
+"""Custom reference-database construction — this package's
 build_midas_db (reference: midas/build/build_db.py + the
 scripts/build_midas_db.py CLI).
 

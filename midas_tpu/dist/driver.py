@@ -32,8 +32,9 @@ import numpy as np
 def initialize(coordinator_address: Optional[str] = None,
                num_processes: Optional[int] = None,
                process_id: Optional[int] = None) -> None:
-    """jax.distributed.initialize wrapper; no-op for single-process runs
-    (auto-detects cloud TPU topology when args are None)."""
+    """jax.distributed.initialize wrapper; no-op for single-process runs.
+    Pass coordinator_address ("host:port"), num_processes and
+    process_id explicitly where no cluster manager provides them."""
     import jax
 
     if num_processes is not None and num_processes <= 1:

@@ -1,5 +1,5 @@
 """Distributed CNV (genes) and SNP-pileup profiling over a dp x tp
-jax.sharding.Mesh — the TPU replacement for the reference's fork pools
+jax.sharding.Mesh — the device replacement for the reference's fork pools
 and per-species pileup workers (midas/utility.py:81-107,
 midas/run/snps.py:219-244) and the index sharding the reference never
 needed because per-sample indexes fit host RAM (a 5,952-species

@@ -1,4 +1,4 @@
-"""Multi-chip sharding: the TPU-native replacement for the reference's
+"""Multi-device sharding: the replacement for the reference's
 process-level parallelism (multiprocessing.Pool at utility.py:81-107,
 RLIMIT-bounded sample batching at :38-57, line-range sharding at
 merge/snps.py:366-386).
@@ -6,7 +6,7 @@ merge/snps.py:366-386).
 Parallel axes:
 - "dp" (data parallel): read batches shard across chips; every chip
   aligns its shard against its local reference slice and per-species
-  count tensors merge with psum — the TPU analogue of the reference's
+  count tensors merge with psum — the device analogue of the reference's
   embarrassingly-parallel read streams.
 - "tp" (index parallel): the packed reference + its seed index shard
   across chips (the reference sidesteps this because per-sample indexes
@@ -30,8 +30,8 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
 
-from midas_tpu.align.banded import banded_align
 from midas_tpu.align.params import ScoringParams
+from midas_tpu.align.pipeline import dispatch_banded_align
 from midas_tpu.align.seed import SeedParams, find_candidates, gather_windows
 from midas_tpu.db.index import SeedIndex, build_seed_index
 from midas_tpu.db.refpack import GUARD, ReferencePack
@@ -161,8 +161,8 @@ def distributed_profile_step(
                            rc[:, None, :], codes[:, None, :])
         q_pair = jnp.broadcast_to(q_pair, (B, C, L)).reshape(B * C, L)
         qlens_pair = jnp.broadcast_to(qlens[:, None], (B, C)).reshape(B * C)
-        out = banded_align(q_pair, qlens_pair, ref_win.reshape(B * C, W),
-                           scoring, band_width=D)
+        out = dispatch_banded_align(q_pair, qlens_pair,
+                                    ref_win.reshape(B * C, W), scoring, D)
         score = jnp.where(cands["valid"],
                           out["score"].reshape(B, C), -jnp.inf)
         # local best candidate per read

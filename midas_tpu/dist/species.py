@@ -141,8 +141,8 @@ def dist_species_update(
         spu = jnp.where(uniq_row, g_sp[rows, col], n_species)
         d_count = jnp.zeros(n_species + 1, jnp.int32).at[spu].add(
             jnp.where(uniq_row, 1, 0))
-        d_bp = jnp.zeros(n_species + 1, jnp.float32).at[spu].add(
-            jnp.where(uniq_row, g_aln[rows, col].astype(jnp.float32), 0.0))
+        d_bp = jnp.zeros(n_species + 1, jnp.int32).at[spu].add(
+            jnp.where(uniq_row, g_aln[rows, col], 0))
         d_count = jax.lax.psum(d_count, "dp")
         d_bp = jax.lax.psum(d_bp, "dp")
 
@@ -273,7 +273,7 @@ class DistributedSpeciesProfiler(SpeciesProfiler):
                 state = _dc.replace(
                     st0,
                     uniq_count=jnp.asarray(arrays["uniq_count"]),
-                    uniq_bp=jnp.asarray(arrays["uniq_bp"]),
+                    uniq_bp=jnp.asarray(arrays["uniq_bp"], jnp.int32),
                     total_alns=jnp.asarray(np.int32(arrays["total_alns"])))
                 if arrays["amb_sp"].shape[0]:
                     drained.append({k: arrays[k] for k in

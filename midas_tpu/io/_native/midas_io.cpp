@@ -3,11 +3,10 @@
 // Role: the hot host-side loop of the whole framework. The reference
 // pipes reads through a Python subprocess into C aligners
 // (midas/run/stream_seqs.py:43-65 | hs-blastn, species.py:29-49); in
-// midas_tpu the aligner is the TPU, so the only host work per batch is
-// parse + 2-bit encode — which in pure Python tops out around 50k
-// reads/s, far below the device's appetite. This parser fills the
-// caller's preallocated numpy buffers directly and sustains millions
-// of reads/s.
+// midas_tpu the aligner is the accelerator, so the only host work per
+// batch is parse + 2-bit encode — which in pure Python is far slower
+// than the device. This parser fills the caller's preallocated numpy
+// buffers directly.
 //
 // Grammar: lh3-readfq equivalent (multi-line FASTA, 4-line or
 // multi-line FASTQ, qual=None -> phred 40 fill), matching

@@ -1,7 +1,7 @@
 """Fixed-shape read batches for device upload.
 
 The reference streams reads through unix pipes into aligner processes
-(species.py:29-49, genes.py:116-145). On TPU everything under jit is
+(species.py:29-49, genes.py:116-145). Here everything under jit is
 compiled for static shapes, so reads are packed into rectangular
 batches: codes [B, L] int8 padded with the sentinel code 4, plus
 per-read lengths, per-base phred qualities, and per-read mean quality

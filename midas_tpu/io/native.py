@@ -1,7 +1,8 @@
 """ctypes binding for the native batch reader (io/_native/midas_io.cpp).
 
 The shared library is compiled on first use with g++ (-O3, linked
-against zlib) and cached under ~/.cache/midas_tpu/. Callers must treat
+against zlib) into the checkout's build directory (runtime.build_dir()).
+Callers must treat
 availability as optional: `load_native()` returns None when no
 compiler/zlib is present, and io.batch falls back to the pure-Python
 parser (seqio.read_fastx).
@@ -24,16 +25,10 @@ _LIB: Optional[ctypes.CDLL] = None
 _TRIED = False
 
 
-def _cache_dir() -> str:
-    d = os.environ.get("MIDAS_TPU_CACHE",
-                       os.path.join(os.path.expanduser("~"), ".cache",
-                                    "midas_tpu"))
-    os.makedirs(d, exist_ok=True)
-    return d
-
-
 def _build() -> Optional[str]:
-    so = os.path.join(_cache_dir(), "libmidas_io.so")
+    from midas_tpu.runtime import build_dir
+
+    so = os.path.join(build_dir(), "libmidas_io.so")
     if os.path.exists(so) and os.path.getmtime(so) >= os.path.getmtime(_SRC):
         return so
     tmp = so + f".tmp.{os.getpid()}"

@@ -1,7 +1,7 @@
 """Host->device input pipeline: parse + upload overlapped with compute.
 
 The reference overlaps stages with unix pipes between processes
-(stream_seqs | hs-blastn, midas/run/species.py:29-49). The TPU
+(stream_seqs | hs-blastn, midas/run/species.py:29-49). The device
 equivalent is a producer thread that parses FASTQ batches and issues
 jax.device_put while the main thread's previous update step is still
 executing on device — double/triple buffering bounded by a small queue.

@@ -1,6 +1,6 @@
 """Sequence IO: FASTA/FASTQ streaming and 2-bit-style base encoding.
 
-TPU-native replacement for the reference's read streamer
+The replacement for the reference's read streamer
 (/root/reference/midas/run/stream_seqs.py:10-65, a subprocess that
 re-writes FASTQ to renamed FASTA on a unix pipe) and for
 utility.iopen/parse_file (/root/reference/midas/utility.py:194-216).

@@ -1,4 +1,4 @@
-"""Pangenome CNV profiling — TPU-native midas/run/genes.py.
+"""Pangenome CNV profiling — the device version of midas/run/genes.py.
 
 Reads are aligned with the local-scoring aligner against a per-run pack
 of the selected species' 99%-identity gene centroids (replacing

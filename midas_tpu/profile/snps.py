@@ -1,4 +1,4 @@
-"""SNP pileup profiling — TPU-native midas/run/snps.py.
+"""SNP pileup profiling — the device version of midas/run/snps.py.
 
 Reads are aligned end-to-end (glocal) against a per-run pack of the
 selected species' representative genomes (replacing build_genome_db +

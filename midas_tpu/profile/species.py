@@ -1,6 +1,6 @@
 """Species abundance profiling from universal single-copy marker genes.
 
-TPU-native re-implementation of midas/run/species.py: reads are aligned
+A device re-implementation of midas/run/species.py: reads are aligned
 to the 15-family marker database with the device seed-and-extend
 aligner (replacing the `stream_seqs | hs-blastn` pipeline at
 species.py:29-49), then classified with the reference's exact filter
@@ -339,7 +339,7 @@ class SpeciesProfiler:
                 state = _dc.replace(
                     st0,
                     uniq_count=jnp.asarray(arrays["uniq_count"]),
-                    uniq_bp=jnp.asarray(arrays["uniq_bp"]),
+                    uniq_bp=jnp.asarray(arrays["uniq_bp"], jnp.int32),
                     total_alns=jnp.asarray(np.int32(arrays["total_alns"])))
                 if arrays["amb_sp"].shape[0]:
                     drained.append({k: arrays[k] for k in

@@ -117,11 +117,11 @@ def _make_species(
     return SimSpecies(sid, gid, contigs, genes, marker_gene_ids)
 
 
-_COMP_TABLE = {"A": "T", "T": "A", "G": "C", "C": "G"}
+_COMP_TABLE = str.maketrans("ATGC", "TACG")
 
 
 def _revcomp(seq: str) -> str:
-    return "".join(_COMP_TABLE.get(b, b) for b in reversed(seq))
+    return seq.translate(_COMP_TABLE)[::-1]
 
 
 def simulate_db(
@@ -299,7 +299,7 @@ def _mutate_read(rng: np.random.Generator, frag: str, read_len: int,
         if degrade:
             qual[pos] = rng.integers(2, 21, size=nmut)
     read = arr.tobytes().decode("ascii")
-    qstr = "".join(chr(33 + int(q)) for q in qual)
+    qstr = (qual + 33).astype(np.uint8).tobytes().decode("ascii")
     return read, qstr
 
 

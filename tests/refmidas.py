@@ -31,6 +31,11 @@ runpy.run_path({stream_seqs!r}, run_name="__main__")
 """
 
 
+def reference_available() -> bool:
+    """The reference MIDAS checkout these golden tests run is present."""
+    return os.path.isdir(os.path.join(REF_ROOT, "midas"))
+
+
 def hsblastn_available() -> bool:
     return os.path.isfile(HSBLASTN) and os.access(HSBLASTN, os.X_OK)
 

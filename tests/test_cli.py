@@ -10,7 +10,7 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ENV = dict(os.environ,
            PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""),
-           MIDAS_TPU_PLATFORM="cpu")
+           JAX_PLATFORMS="cpu")
 
 
 def run(cmd, **kw):

@@ -36,6 +36,28 @@ def test_species_device_equals_host(sim_community, noisy_reads, tmp_path):
     assert dev_abund == host_abund
 
 
+def test_species_uniq_bp_is_exact_int32():
+    """uniq_bp accumulates in int32 (an exact sum in any scatter order,
+    past float32's 2^24), and a snapshot written while it was float32
+    restores to the same integers."""
+    import jax.numpy as jnp
+
+    from midas_tpu.profile import device_steps as ds
+
+    st = ds.species_init(3, 4, 64)
+    assert st.uniq_bp.dtype == jnp.int32
+    big = 2**24 + 1                      # not representable in float32
+    st = ds.SpeciesState(**{**vars(st),
+                            "uniq_bp": st.uniq_bp.at[1].add(big).at[1].add(2)})
+    h = ds.species_state_host(st)
+    assert h["uniq_bp"][1] == big + 2
+    old = dict(h, uniq_bp=np.array([0, 1500, 7, 0], np.float32))
+    restored = ds.species_state_restore(old, 64)
+    assert restored.uniq_bp.dtype == jnp.int32
+    np.testing.assert_array_equal(np.asarray(restored.uniq_bp),
+                                  [0, 1500, 7, 0])
+
+
 def test_genes_device_equals_host(sim_community, noisy_reads):
     from midas_tpu.profile.genes import GenesProfiler
 

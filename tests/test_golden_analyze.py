@@ -11,6 +11,10 @@ import pytest
 
 import refmidas
 
+pytestmark = pytest.mark.skipif(
+    not refmidas.reference_available(),
+    reason="reference MIDAS checkout unavailable")
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

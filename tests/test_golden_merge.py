@@ -14,6 +14,10 @@ import pytest
 
 import refmidas
 
+pytestmark = pytest.mark.skipif(
+    not refmidas.reference_available(),
+    reason="reference MIDAS checkout unavailable")
+
 
 def _diff(path_a, path_b):
     __tracebackhide__ = True

@@ -1,9 +1,10 @@
 """Bowtie2 quality-scaled mismatch penalties (--mp 6,2) and read-N
-penalty (--np 1) — VERDICT r4 missing #1. The DP personalities for
-pangenome (local) and rep-genome (glocal) mapping score a mismatch at
-Phred quality Q as MN + floor((MX-MN)*MIN(Q,40)/40) per the bowtie2
-manual; scores must agree exactly between the banded kernel, the Pallas
-kernel, and the NumPy oracle, and Q40 reads must reproduce the flat
+penalty (--np 1). The DP personalities for pangenome (local) and
+rep-genome (glocal) mapping score a mismatch at Phred quality Q as
+MN + floor((MX-MN)*MIN(Q,40)/40) per the bowtie2 manual; scores must
+agree exactly between the banded DP and the NumPy oracle (the CUDA
+kernel is held to the banded DP in tests/test_dp_dispatch.py), and Q40
+reads must reproduce the flat
 model bit-for-bit (simulator fixtures with constant top quality are
 unchanged by this feature)."""
 
@@ -84,38 +85,6 @@ def test_banded_qual_scaled_matches_oracle(params):
         assert out["mismatches"][i] == oracle.mismatches, i
         n_checked += 1
     assert n_checked >= 16
-
-
-def test_pallas_qual_scaled_matches_banded():
-    """The Pallas kernel (interpret mode off-TPU) reproduces the jnp
-    kernel bit-for-bit with quality penalties and read Ns."""
-    from midas_tpu.align.pallas_sw import pallas_banded_align
-
-    rng = np.random.default_rng(11)
-    L, P = 64, 128
-    ref = rng.integers(0, 4, size=(P, L + BAND - 1)).astype(np.int8)
-    q = np.array(ref[:, BAND // 2: BAND // 2 + L], copy=True)
-    for i in range(P):
-        nmut = i % 5
-        pos = rng.choice(L, size=nmut, replace=False)
-        q[i, pos] = (q[i, pos] + rng.integers(1, 4, size=nmut)) % 4
-        if i % 4 == 0:
-            q[i, 3] = 4
-    quals = rng.integers(0, 45, size=(P, L)).astype(np.int8)
-    qpen = np.array([[GLOBAL_SCORING.mismatch_penalty(int(x)) for x in row]
-                     for row in quals], dtype=np.int8)
-    qlens = np.full(P, L, dtype=np.int32)
-    want = banded_align(jnp.asarray(q), jnp.asarray(qlens), jnp.asarray(ref),
-                        GLOBAL_SCORING, band_width=BAND,
-                        qpen=jnp.asarray(qpen))
-    got = pallas_banded_align(jnp.asarray(q), jnp.asarray(qlens),
-                              jnp.asarray(ref), GLOBAL_SCORING,
-                              band_width=BAND, interpret=True,
-                              qpen=jnp.asarray(qpen))
-    for k in ("score", "qstart", "qend", "matches", "mismatches",
-              "gap_cols", "gap_opens"):
-        np.testing.assert_array_equal(np.asarray(got[k]), np.asarray(want[k]),
-                                      err_msg=k)
 
 
 def test_q40_reads_reproduce_flat_model():
